@@ -1,9 +1,10 @@
-"""Ensemble multi-start optimization — a TPU-native axis beyond the
-reference: propagate gradient sweeps for MANY control candidates at once
-with one vmapped call, then L-BFGS the best candidate.
+"""Ensemble multi-start optimization — an axis beyond the reference:
+propagate gradient sweeps for MANY control candidates at once with one
+vmapped call, then L-BFGS the best candidate.
 
-On a TPU this costs barely more than one candidate: the per-step matmuls
-batch over (ensemble x initial-conditions)."""
+On an accelerator the candidates run side by side: the per-step matmuls
+batch over (ensemble x initial-conditions), and on a GPU the fused kernel
+runs one program per candidate."""
 
 import jax
 import jax.numpy as jnp

@@ -1,16 +1,15 @@
-"""Large Hilbert spaces on one TPU chip: nlevels 32,32,32,32 (N = 2^20).
+"""Large Hilbert spaces on one accelerator: nlevels 32,32,32,32 (N = 2^20).
 
 The reference needs a distributed MPI allocation with PETSc row-partitioned
 states for this size (its 32^4 perf-CI case runs np=32); here the grouped
-(matricized) engine runs it on one chip — the state is a (1024, 1024)
-matrix, the Hamiltonian application is two square MXU GEMMs plus cheap
+(matricized) engine runs it on one device — the state is a (1024, 1024)
+matrix, the Hamiltonian application is two square GEMMs plus cheap
 cross terms, the stiff Kerr diagonal is integrated exactly by the
 diagonally-split stepper (auto-selected), and the gradient runs a
 hand-written solve-based adjoint at ~2x forward cost.
 
-Expect ~4-15 ms/step forward and ~12-46 ms/step for the full gradient on a
-v5e depending on the GEMM precision (see docs/performance.md); on CPU this
-example still runs, just slowly — shrink nlev for a quick look.
+On the CPU this example still runs, just slowly — shrink nlev for a quick
+look.
 
 Usage: python examples/example_large_n.py [nlev] [ntime]
 """

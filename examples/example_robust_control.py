@@ -58,12 +58,6 @@ def worst_infid(x):
 
 
 obj_robust = build_robust_objective(problems)
-if problems[0].use_pallas and problems[0].pack_group >= len(problems):
-    # On TPU with the fused kernels active (Setup(pallas=True/auto,
-    # dtype=complex64)) all samples propagate through ONE lane-packed
-    # kernel program per sweep — same result, G x fewer MXU issues.
-    from quandary_tpu.optim.robust import build_packed_robust_objective
-    obj_robust = build_packed_robust_objective(problems)
 
 res_nom = minimize_lbfgsb(make_fg(nominal.objective), x0, lb, ub, maxiter=80)
 res_rob = minimize_lbfgsb(make_fg(obj_robust), x0, lb, ub, maxiter=80)

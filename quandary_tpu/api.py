@@ -2,7 +2,7 @@
 
 Mirrors the reference Python front end (quandary.py:10-893) field-for-field —
 same defaults, same derived quantities (time-step estimate, spline counts,
-carrier-wave resonances) — but everything runs IN-PROCESS on TPU/CPU through
+carrier-wave resonances) — but everything runs IN-PROCESS on a GPU or the CPU through
 JAX: no config files, no `mpirun` subprocess, no output-file round trip.
 Output files in the reference formats can still be written via `datadir` for
 compatibility and golden testing.
@@ -100,9 +100,8 @@ class Quandary:
     maxiter: int = 200
     # optimizer driver: 'host' = per-iteration strong-Wolfe L-BFGS-B
     # (reference-faithful, f64); 'device' = the on-device chunked loop
-    # (optim/device_driver.py — one host fetch per chunk; 2.9 s to CNOT
-    # 1e-4 on a v5e vs 4.3 s host/CPU); 'auto' = device when running on a
-    # TPU backend, host otherwise
+    # (optim/device_driver.py — one host fetch per chunk); 'auto' = device
+    # on a GPU, host otherwise (quandary_tpu/backend.py)
     optimizer: str = "auto"
     tol_infidelity: float = 1e-5
     tol_costfunc: float = 1e-4
@@ -121,7 +120,7 @@ class Quandary:
     print_frequency_iter: int = 1
     usematfree: bool = True           # engine hint: tensor engine for large N
     verbose: bool = False
-    precision: str = "double"         # 'double' (validation) | 'single' (TPU speed)
+    precision: str = "double"         # 'double' (validation) | 'single' (speed)
     linearsolver_maxiter: int = 20
     # Internal
     _ninit: int = -1
@@ -452,7 +451,7 @@ class Quandary:
                  datadir="./run_dir", multistart: int = 1, **_ignored):
         """Run the optimization (quandary.py:351-395).
 
-        multistart > 1 (TPU-native extension): refine `multistart` random
+        multistart > 1 (an extension of the reference): refine `multistart` random
         starting points IN PARALLEL on-device with the batched L-BFGS
         (optim/batched_lbfgs.py), then polish the best candidate with the
         host optimizer. Requires rand_seed for reproducibility."""
@@ -483,9 +482,8 @@ class Quandary:
             J, _ = problem.objective(x, ref)
             return J
 
-        kw = problem.packed_batch_fns(ref)
         run = problem._wrap_with_data(lambda xs: batched_lbfgsb(
-            objective, jax.grad(objective), xs, lb, ub, iters=30, **kw))
+            objective, jax.grad(objective), xs, lb, ub, iters=30))
         xbest, fbest, _ = run(x0s)
         best = int(jnp.argmin(fbest))
         if self.verbose:
@@ -572,11 +570,8 @@ class Quandary:
                            if len(np.atleast_1d(self.maxctrl_MHz)) > 0
                            else [1e15] * len(self.Ne))]
             lb, ub = build_bounds(setup.oscillators, bounds_ghz)
-            import jax
-            use_device = (self.optimizer == "device"
-                          or (self.optimizer == "auto"
-                              and jax.default_backend() == "tpu"))
-            if use_device:
+            from .backend import optimizer_driver
+            if optimizer_driver(self.optimizer) == "device":
                 from .optim.device_driver import run_optimization_device
                 res = run_optimization_device(
                     problem, params0, lb, ub, maxiter=self.maxiter,

@@ -133,10 +133,8 @@ def run(config_path: str, quiet: bool = True, datadir_override: str = None) -> d
         # control<k>.dat + optim_state.npz rewritten every monitor interval
         # (driver.run_optimization); a killed run resumes from the
         # checkpoint via resume=True.
-        import jax as _jax
-        use_device = (spec.optim_driver == "device"
-                      or (spec.optim_driver == "auto"
-                          and _jax.default_backend() == "tpu"))
+        from .backend import optimizer_driver
+        use_device = optimizer_driver(spec.optim_driver) == "device"
         driver_kw = dict(
             maxiter=spec.maxiter, gatol=spec.gatol, grtol=spec.grtol,
             fatol=spec.fatol, inftol=spec.inftol,

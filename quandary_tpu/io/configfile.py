@@ -215,7 +215,7 @@ class RunSpec:
     optim_driver: str = "host"        # host | device | auto (extension key:
                                       # 'device' runs the chunked on-device
                                       # L-BFGS-B loop, optim/device_driver.py;
-                                      # 'auto' selects it on TPU backends.
+                                      # 'auto' selects it on a GPU.
                                       # CLI default is 'host' — the
                                       # reference-faithful f64 Wolfe driver —
                                       # so config-file golden parity is
@@ -324,9 +324,9 @@ def setup_from_config(cfg: Config, workdir: str = ".") -> Tuple[Setup, RunSpec]:
         # 'usematfree' (the reference's matrix-free-kernels hint,
         # main.cpp:290-314) is consumed but ADVISORY here: it selects
         # between the reference's two mathematically-identical RHS
-        # implementations, and the TPU-first analog of that choice is the
-        # automatic engine selection (dense stack enables the fused kernels
-        # at small N; tensor/grouped engines take over at large N).
+        # implementations, and the analog of that choice here is the
+        # automatic engine selection (dense stack, with the fused GPU
+        # kernel at small N; tensor/grouped engines take over at large N).
         cfg.get_bool("usematfree", False)
         if N > 1024:
             from ..ops.tensor_rhs import build_structured_model
@@ -429,7 +429,7 @@ def setup_from_config(cfg: Config, workdir: str = ".") -> Tuple[Setup, RunSpec]:
         linsolve_iters=cfg.get_int("linearsolver_maxiter", 20),
         # 'linearsolver_type' (gmres|neumann) is consumed but ADVISORY: it
         # picks between two solvers for the SAME IMR stage equations, and
-        # the TPU-first choice — fixed-iteration Neumann with the
+        # the choice here — fixed-iteration Neumann with the
         # stiffness-guard upgrade to the Jacobi-preconditioned iteration —
         # reaches machine-precision residuals where the reference's
         # unpreconditioned GMRES warns above 1e-3 (timestepper.cpp:612).

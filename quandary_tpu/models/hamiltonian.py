@@ -16,12 +16,12 @@ complex matrices O_j and per-time real coefficients c_j(t):
 The coefficient rows for the whole time grid are assembled once per objective
 evaluation (a few small matmuls through the control plan); per step the dense
 engine contracts c_n with the stack (cheap) and applies H to the state batch
-with one MXU matmul. This replaces the reference's MatShell/sparse-AIJ design
+with one matmul. This replaces the reference's MatShell/sparse-AIJ design
 (mastereq.cpp:192-655) and its matrix-free template kernels (1280-3240).
 
 Open systems add the Lindblad dissipator in matrix form (NOT vectorized to
 N^2 — density matrices stay (N, N) and the dissipator is applied with batched
-matmuls, which is the MXU-native formulation):
+matmuls, which suits the accelerator's matrix units):
 
     L(rho) = sum_j gamma_j ( L_j rho L_j^dag - 1/2 {L_j^dag L_j, rho} )
     L_{1k} = a_k / sqrt(T1_k),  L_{2k} = a_k^dag a_k / sqrt(T2_k)

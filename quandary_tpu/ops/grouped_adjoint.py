@@ -33,7 +33,7 @@ polynomial approximating (I - aM)^{-1}.
 
 * State reconstruction — same approximate reversibility as the generic
   path: x = y - dt P_{-a}(M y). The reconstruction and w solves share one
-  BATCHED solve call (2B states), doubling the GEMM batch on the MXU.
+  BATCHED solve call (2B states), doubling the GEMM batch.
 
 Per-step backward cost ~ 2x forward (one batched double solve + 2 M
 applications + the stack contractions) vs ~7x for AD through the unrolled

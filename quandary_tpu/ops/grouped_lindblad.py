@@ -14,7 +14,7 @@ partition over the mesh for free).
 Same coefficient layout and physics conventions as TensorEngine — the two
 engines agree to rounding (test_grouped_lindblad.py) — so this engine is a
 drop-in for StructuredModel Lindblad problems at large N where rank-d
-contractions underuse the MXU.
+contractions underuse the matrix units.
 """
 
 from __future__ import annotations

@@ -1,9 +1,8 @@
 """Host-driven time stepping for very large problems.
 
 A single jitted program containing the whole `lax.scan` time loop is the
-right design for production TPU stacks, but some environments (remote-compile
-relays, constrained compile services) struggle to compile scan bodies with
-very large operands. This module provides an equivalent execution mode that
+right design in production, but a constrained compile service can struggle
+to compile scan bodies with very large operands. This module provides an equivalent execution mode that
 jits ONE time step and drives the loop from the host:
 
 * forward: x_{n+1} = step(x_n, C_n) — 50..10^4 async dispatches; device

@@ -5,10 +5,10 @@ The dynamics are LINEAR: x_{n+1} = S_n x_n with the IMR step operator
     S_n = I + dt * K_n,   K_n = (I - dt/2 M_n)^{-1} M_n,  M_n = -i H(t_n+dt/2)
 
 Instead of scanning sequentially over time (2*ntime dependent tiny matmuls,
-latency-bound on TPU at small N), we
+latency-bound at small N), we
 
  1. assemble ALL step generators M_n at once (one (ntime*nstages, K) x
-    (K, N, N) tensordot onto the MXU),
+    (K, N, N) tensordot, one large GEMM),
  2. run the matrix Neumann recursion batched over all steps
     (K <- M + (dt/2) M K, a few (T, N, N) batched GEMMs),
  3. combine stages into per-step operators S_n,

@@ -5,11 +5,11 @@ This is the optimizer counterpart of the ensemble axis: multi-start
 optimization where E candidates each run a projected L-BFGS with fixed
 iteration count, vmapped over the ensemble. The line search is itself
 parallel: all backtracking step lengths are evaluated in ONE batched
-objective call and the first Armijo-satisfying one is selected — on a TPU
-the extra candidates ride along in the same GEMMs.
+objective call and the first Armijo-satisfying one is selected — on an
+accelerator the extra candidates ride along in the same batched GEMMs.
 
 The reference has no analog (its TAO loop is host-side and single-problem);
-this is how a population of pulse candidates is refined at chip speed.
+this is how a population of pulse candidates is refined at device speed.
 """
 
 from __future__ import annotations
@@ -64,9 +64,8 @@ def batched_lbfgsb(
 
     objective(x) -> scalar; grad(x) -> (n,). Both are vmapped internally —
     unless `objective_batch(xs (E, n)) -> (E,)` / `grad_batch(xs) -> (E, n)`
-    are supplied, which REPLACE the vmaps (used to route the population
-    through Problem's lane-packed group kernels, where G candidates share
-    each MXU issue instead of vmapping G kernel programs).
+    are supplied, which REPLACE the vmaps (Problem.sharded_batch_fns uses
+    them to shard the population over a device mesh).
 
     speculative (default): after `ls_warmup` classic backtracking
     iterations, the line search switches to a SPECULATIVE per-candidate
@@ -90,7 +89,7 @@ def batched_lbfgsb(
 
     Cost note: the one-value_and_grad-per-iteration steady state requires
     either no batch hooks at all (vg_b is derived from `objective`) or the
-    full hook triple INCLUDING `vg_batch` (Problem.packed_batch_fns
+    full hook triple INCLUDING `vg_batch` (Problem.sharded_batch_fns
     supplies all three). Passing only objective_batch/grad_batch falls
     back to a forward + a separate gradient per iteration (~1.3x a fused
     value_and_grad).

@@ -77,89 +77,3 @@ def sample_standard_models(base_kwargs: dict, param_samples: Sequence[dict],
         problems.append(Problem(Setup(model=model, **setup_kwargs)))
     return problems
 
-
-def build_packed_robust_objective(problems: Sequence,
-                                  weights: Optional[Sequence[float]] = None):
-    """Packed variant of build_robust_objective: ALL system realizations
-    propagate through ONE lane-packed kernel program per sweep
-    (ops/pallas_stream.make_streamk_packed_propagate with per-block
-    operator stacks) instead of one fused program per sample — the same
-    G x MXU-issue win the candidate-ensemble axis gets, applied to the
-    sample axis. Requirements (validated): every Problem runs the fused
-    streamK path, same discretization/shape, identical initial conditions,
-    and the group fits one 128-lane tile."""
-    S = len(problems)
-    p0 = problems[0]
-    s0 = p0.setup
-    dim = p0.N * p0.N if p0.lindblad else p0.N
-    for p in problems:
-        if not (p.use_pallas and p.setup.pallas_mode == "streamk"):
-            raise ValueError("packed robust objective needs the fused "
-                             "streamK path on every sample Problem")
-        if (p.N != p0.N or p.lindblad != p0.lindblad
-                or p.setup.ntime != s0.ntime or p.setup.dt != s0.dt
-                or p.linsolver != p0.linsolver
-                or p.setup.linsolve_iters != s0.linsolve_iters
-                or p.model.K != p0.model.K or p.nstages != 1):
-            raise ValueError("sample Problems must share shape and "
-                             "discretization for packing")
-        if not np.array_equal(np.asarray(p.x0), np.asarray(p0.x0)):
-            raise ValueError("sample Problems must share initial conditions")
-        if (p.gen_diag is None) != (p0.gen_diag is None):
-            raise ValueError(
-                "sample Problems must agree on gen_diag presence: a mixed "
-                "ensemble would silently run one sample with a zeroed drift "
-                "diagonal under the jacobi/split solvers")
-    if S * dim > 128:
-        raise ValueError(f"group of {S} samples at dim {dim} exceeds one "
-                         "128-lane tile; use build_robust_objective")
-    w = np.asarray(weights if weights is not None else np.full(S, 1.0 / S),
-                   dtype=float)
-    w = w / w.sum()
-
-    from ..ops.pallas_stream import make_streamk_packed_propagate
-
-    def _gd(p):
-        _, gd, _ = p._flat_state_layout()
-        if gd is None:
-            return np.zeros((dim,), np.complex128)
-        return np.asarray(gd).reshape(-1)
-
-    gen_diag = np.stack([_gd(p) for p in problems]) \
-        if p0.gen_diag is not None else None
-    proto = np.zeros((S, p0.model.K, dim, dim), np.complex64)
-    prop = make_streamk_packed_propagate(
-        proto, s0.dt, s0.linsolve_iters, gen_diag=gen_diag,
-        linsolver=p0.linsolver, per_block_stacks=True,
-        interpret=p0._pallas_interpret)
-
-    def objective(params, params_ref):
-        Cg = jnp.stack([p.coeff_rows_mid(params)[:, 0, :]
-                        for p in problems], axis=1)        # (ntime, S, K)
-        Sr = jnp.stack([jnp.asarray(p.engine.pallas_Sr) for p in problems])
-        Si = jnp.stack([jnp.asarray(p.engine.pallas_Si) for p in problems])
-        _, _, x0k = p0._flat_state_layout()
-        xT, hist = prop(Sr, Si, x0k, Cg)
-        xT, hist = p0._unflatten_states(xT, hist)
-        J_total = 0.0
-        fids = []
-        terms = None
-        for g, (p, ws) in enumerate(zip(problems, w)):
-            pl_, pj, pd = p._history_penalties(hist[:, g])
-            J, aux = p._assemble_objective(params, params_ref, xT[g],
-                                           pl_, pj, pd,
-                                           p._energy_integral(params))
-            J_total = J_total + ws * J
-            fids.append(aux["fidelity"])
-            if terms is None:
-                terms = {k: ws * v for k, v in aux.items() if k != "fidelity"}
-            else:
-                for k in terms:
-                    terms[k] = terms[k] + ws * aux[k]
-        aux_out = dict(terms)
-        aux_out["fidelity"] = jnp.min(jnp.stack(fids))      # worst case
-        aux_out["fidelity_mean"] = jnp.sum(jnp.stack(fids) * jnp.asarray(w))
-        aux_out["fidelity_per_sample"] = jnp.stack(fids)
-        return J_total, aux_out
-
-    return objective

@@ -1,4 +1,4 @@
-"""Device-mesh sharding: the TPU-native replacement for the reference's
+"""Device-mesh sharding: the JAX replacement for the reference's
 3-way MPI communicator split (main.cpp:133-177).
 
 Axes:
@@ -67,8 +67,8 @@ def shard_problem(problem, mesh: Mesh, shard_hilbert: bool = False):
     problem.mesh = mesh
     problem.shard_hilbert = bool(shard_hilbert)
     if shard_hilbert and getattr(problem, "use_pallas", False):
-        # the fused Pallas kernel is a single-device program; hilbert-axis
-        # runs use the XLA engines, which GSPMD partitions
+        # the fused kernel is a single-device program; hilbert-axis runs
+        # use the XLA engines, which GSPMD partitions
         problem.use_pallas = False
 
     if jax.process_count() > 1:

@@ -1,6 +1,6 @@
 """Multi-host execution helpers.
 
-On a multi-host TPU slice, JAX runs one process per host; after
+On a multi-host cluster, JAX runs one process per host; after
 `initialize()` every process sees the global device set and the single-
 controller programming model applies unchanged: build the mesh over
 `jax.devices()` (all hosts), shard the problem, jit — GSPMD partitions
@@ -30,8 +30,9 @@ from typing import Optional
 def initialize(coordinator_address: Optional[str] = None,
                num_processes: Optional[int] = None,
                process_id: Optional[int] = None) -> None:
-    """jax.distributed.initialize with cluster auto-detection (GKE/GCE TPU
-    environments need no arguments)."""
+    """jax.distributed.initialize. Clusters JAX detects (e.g. SLURM) need
+    no arguments; elsewhere pass coordinator_address (host:port),
+    num_processes and process_id."""
     import jax
 
     if num_processes is not None and num_processes <= 1:

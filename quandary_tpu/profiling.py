@@ -3,9 +3,9 @@ MPI_Wtime + getrusage + timing.dat, main.cpp:453-487; SURVEY section 5).
 
 * `timer()` context: wall time + peak RSS, optionally appended to timing.dat;
 * `trace(dir)` context: a full `jax.profiler` device trace (TensorBoard /
-  xprof format) around any block — per-kernel timing on real TPUs;
-* `sweep_timer`: synchronous throughput measurement (value fetched per rep —
-  async completion signals are unreliable through proxy backends).
+  xprof format) around any block — per-kernel timing on the device;
+* `sweep_timer`: synchronous throughput measurement (value fetched per rep,
+  so every rep includes its device-to-host round trip).
 """
 
 from __future__ import annotations

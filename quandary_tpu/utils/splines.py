@@ -8,7 +8,7 @@ so that
     q(t) = sum_f sin(Omega_f t) B1_f(t) + cos(Omega_f t) B2_f(t)
 with B1_f = B @ alpha_re[f], B2_f = B @ alpha_im[f].
 
-TPU-native design: instead of evaluating splines per time step (reference:
+Accelerator design: instead of evaluating splines per time step (reference:
 controlbasis.cpp + oscillator.cpp:281-337, one scalar evaluation per step), we
 precompute the dense basis matrix B of shape (ntimes, nsplines) on the host
 once, and evaluate ALL control values on the full time grid with a single

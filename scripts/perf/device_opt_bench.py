@@ -9,6 +9,9 @@ to 6.99e-5 (PERF.md "CNOT quality anchor").
 
 Usage:
     timeout 1800 python scripts/perf/device_opt_bench.py [chunk] [--cpu]
+                                                         [--pallas]
+--pallas runs the split stepper (3 iterations) in complex64, where a GPU
+takes the fused kernel (ops/fused_triton.py).
 """
 
 import json
@@ -27,11 +30,6 @@ def main():
     if "--cpu" in sys.argv:
         jax.config.update("jax_platforms", "cpu")
         jax.config.update("jax_enable_x64", True)
-    else:
-        jax.config.update("jax_compilation_cache_dir",
-                          "/tmp/quandary_bench_jaxcache")
-        jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
     import jax.numpy as jnp
 
     from quandary_tpu import Quandary
@@ -50,17 +48,8 @@ def main():
     setup = q._build_setup()
     import dataclasses
     if "--cpu" not in sys.argv and "--pallas" in sys.argv:
-        # fused split kernels (--pallas). MEASURED on v5e (round 3, lane-
-        # packed kernels + speculative line search + memoized trace):
-        # 0.48 s warm / 8.4 s cold to infidelity 1e-4 — the fused engine
-        # now WINS at E=1 too (all 12 line-search trials ride two packed
-        # kernel programs and return gradients, so an iteration is ~5 ms).
-        # xla-scan comparison: 1.26 s warm. The pre-packing figures (15.6 s
-        # stream / 10.8 s streamK, round-3 notes) were dominated by
-        # per-candidate kernel programs plus a full re-trace per run.
         setup = dataclasses.replace(setup, linsolver="split",
-                                    linsolve_iters=3, pallas=True,
-                                    dtype=jnp.complex64)
+                                    linsolve_iters=3, dtype=jnp.complex64)
     problem = Problem(setup)
     print(f"engine: pallas={problem.use_pallas} nsteps={setup.ntime} "
           f"nparams={setup.nparams}", file=sys.stderr)
@@ -93,7 +82,7 @@ def main():
         "reason": res2.reason,
         "chunk": chunk,
         "device": jax.devices()[0].platform,
-        "engine": "pallas-fused-split" if problem.use_pallas else "xla-scan",
+        "engine": "fused-triton" if problem.use_pallas else "xla-scan",
         "cpu_host_anchor_s": 4.3,
     }
     print(json.dumps(rec))

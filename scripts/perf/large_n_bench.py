@@ -1,11 +1,10 @@
-"""Large-N performance reproduction: nlevels 32,32,32,32 (N = 2^20) on one
-TPU chip.
+"""Large-N performance probe: nlevels 32,32,32,32 (N = 2^20) on one device.
 
-Measures (PERF.md "Large N" section):
+Measures:
   1. forward sweep with the all-real grouped Jacobi-IMR step inside
-     lax.scan (~7.5 ms/step on v5e),
+     lax.scan,
   2. full gradient sweep through Problem.build_value_and_grad (reversible
-     O(1)-memory adjoint over the same step, ~2.84 s for ntime=50).
+     O(1)-memory adjoint over the same step, ntime=50).
 
 All big operands are materialized on device (GroupedEngine.device_builders
 via Problem._wrap_with_data); host<->device traffic is KB-scale.
@@ -13,8 +12,9 @@ via Problem._wrap_with_data); host<->device traffic is KB-scale.
 Usage:  python scripts/perf/large_n_bench.py
 
 Set QTPU_MATMUL_PRECISION=default|high|highest to A/B the f32 GEMM
-precision (TPU: 1 / 3 / 6 bf16 MXU passes) against the package default
-(highest); the printed norm drift is the accuracy side of that tradeoff.
+precision (on a GPU: TF32 / 3xTF32 / full f32) against the package
+default (highest); the printed norm drift is the accuracy side of that
+tradeoff.
 """
 
 import dataclasses

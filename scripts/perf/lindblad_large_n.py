@@ -1,11 +1,11 @@
 """Large-N OPEN-SYSTEM performance: two 32-level oscillators under decay +
-dephasing — N = 1024, rho = N^2 = 2^20 complex elements — on one chip via
+dephasing — N = 1024, rho = N^2 = 2^20 complex elements — on one device via
 the GroupedLindbladEngine (ops/grouped_lindblad.py).
 
 The reference runs this size by distributing the N^2 vectorized rho over
 MPI ranks with sparse matvecs (mastereq.cpp:546-614); here every term is a
 group GEMM (contraction rank 32) or an elementwise mask over the rank-4
-rho view, and the whole step stays on one chip.
+rho view, and the whole step stays on one device.
 
 Usage: python scripts/perf/lindblad_large_n.py [ntime]
 """

@@ -61,7 +61,7 @@ def main():
 
     from quandary_tpu.problem import Problem
 
-    _, setup = build_problem(pallas="false")
+    _, setup = build_problem(pallas=False)
     # double precision, like the reference's PETSc build
     setup_f64 = dataclasses.replace(setup, dtype=jnp.complex128)
     problem_f64 = Problem(setup_f64)

@@ -1,9 +1,8 @@
-"""End-to-end consumer of the stream-mode STACK cotangents (VERDICT
-round 3, item 9): examples/example_calibration.py fits an uncertain
-self-Kerr coefficient from synthesized trajectory data by differentiating
-through make_stream_propagate w.r.t. the operator stacks — and asserts
-the streamk footgun (zero stack cotangents by contract) in user position.
-A regression in Sr_bar/Si_bar (pallas_stream.py bwd2) fails this test."""
+"""End-to-end consumer of operator-STACK cotangents:
+examples/example_calibration.py fits an uncertain self-Kerr coefficient
+from synthesized trajectory data by differentiating the XLA scan engine
+with respect to the operator stack. A regression in those cotangents fails
+this test."""
 
 import importlib.util
 import os
@@ -16,5 +15,5 @@ def test_calibration_example_recovers_kerr():
                                                   path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    xi = mod.main(interpret=True)   # asserts rel err < 1e-4 internally
+    xi = mod.main()                 # asserts rel err < 1e-4 internally
     assert xi > 0

@@ -1,6 +1,6 @@
 """Optimizer durability: streamed optim_history.dat, periodic params.dat /
-control<k>.dat rewrites, L-BFGS state checkpointing, and kill-and-resume —
-VERDICT round-2 item 5 (reference anchors: writeOptimFile streaming
+control<k>.dat rewrites, L-BFGS state checkpointing, and kill-and-resume
+(reference anchors: writeOptimFile streaming
 output.cpp:80-86; params/controls at monitor points optimproblem.cpp:573,646;
 params-only warm start via control_initialization = file,
 optimproblem.cpp:167-175 — our optim_state.npz additionally restores the

@@ -1,4 +1,4 @@
-"""The golden-history gnorm question (VERDICT round-2 weak #5), SOLVED by
+"""The golden-history gnorm question, SOLVED by
 reproduction: TAO's bounded-solver ||Pr(grad)|| column is the
 FISCHER-BURMEISTER complementarity residual (PETSc VecFischer),
 w_i = phi(x_i - l_i, phi(u_i - x_i, -g_i)), phi(a, b) = sqrt(a^2+b^2)-a-b —

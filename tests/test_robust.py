@@ -88,27 +88,26 @@ def test_robust_optimization_improves_worst_case():
     assert w_rob < w_nom, (w_rob, w_nom)
 
 
-def test_packed_robust_matches_per_sample():
-    """build_packed_robust_objective (all samples in ONE lane-packed kernel
-    program, per-block operator stacks) must reproduce
-    build_robust_objective exactly: J, every aux column, and the gradient."""
+def test_packed_robust_matches_per_sample(fused_on_cpu):
+    """The robust objective over samples that each run the fused kernel
+    must reproduce the same objective over XLA-scan samples: J, every aux
+    column, and the gradient."""
     import jax.numpy as jnp
-
-    from quandary_tpu.optim.robust import build_packed_robust_objective
 
     base = dict(nlevels=[3], freq01_ghz=[4.1], rotfreq_ghz=[4.1],
                 selfkerr_ghz=[0.2])
     common = _setup_common()
-    common.update(nessential=(2,), pallas=True, pallas_mode="streamk",
-                  dtype=jnp.complex64, gamma_penalty=0.05,
-                  gamma_penalty_energy=0.02)
-    problems = sample_standard_models(
-        base, [{"freq01_ghz": [4.1 + d]} for d in (0.0, 0.002, -0.003)],
-        common)
+    common.update(nessential=(2,), pallas=True, dtype=jnp.complex64,
+                  gamma_penalty=0.05, gamma_penalty_energy=0.02)
+    samples = [{"freq01_ghz": [4.1 + d]} for d in (0.0, 0.002, -0.003)]
+    problems = sample_standard_models(base, samples, common)
     assert all(p.use_pallas for p in problems)
+    scan = sample_standard_models(base, samples,
+                                  dict(common, pallas=False))
+    assert not any(p.use_pallas for p in scan)
     w = [0.5, 0.3, 0.2]
-    obj0 = build_robust_objective(problems, w)
-    obj1 = build_packed_robust_objective(problems, w)
+    obj0 = build_robust_objective(scan, w)
+    obj1 = build_robust_objective(problems, w)
     rng = np.random.default_rng(0)
     params = jnp.asarray(rng.normal(size=problems[0].setup.nparams) * 0.02,
                          jnp.float32)

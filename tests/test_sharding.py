@@ -89,12 +89,13 @@ def test_sharded_grouped_matches_unsharded():
                                rtol=1e-8, atol=1e-12)
 
 
-def test_ensemble_sharded_matches_unsharded():
+def test_ensemble_sharded_matches_unsharded(fused_on_cpu):
     """The candidate/ensemble axis — the one that delivers the headline
     throughput metric — sharded over the mesh via shard_map must reproduce
     the unsharded vmapped value_and_grad and the pipelined-sweeps scalar
-    exactly, for BOTH the XLA scan path and the fused Pallas path (the
-    kernels run whole per shard; GSPMD cannot partition them). This is the
+    exactly, for BOTH the XLA scan path and the fused GPU kernel (here in
+    the Pallas interpreter; it runs whole per shard, GSPMD cannot
+    partition it). This is the
     multi-chip analog of the reference's comm_init split
     (optimproblem.cpp:85-91)."""
     import dataclasses
@@ -106,9 +107,10 @@ def test_ensemble_sharded_matches_unsharded():
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 devices")
 
-    prob_x, setup = _build_problem(ntime=12, T=2.0)
+    _, setup = _build_problem(ntime=12, T=2.0)
+    prob_x = Problem(dataclasses.replace(setup, pallas=False))
     prob_p = Problem(dataclasses.replace(setup, pallas=True))
-    assert prob_p.use_pallas
+    assert prob_p.use_pallas and not prob_x.use_pallas
 
     E, R = 16, 2
     rng = np.random.default_rng(7)
@@ -186,12 +188,12 @@ def test_sharded_tensor_engine_matches_unsharded():
                                rtol=1e-12, atol=1e-15)
 
 
-def test_sharded_population_optimization_matches_unsharded():
-    """A WHOLE population optimization (batched projected L-BFGS with the
-    speculative line search) sharded over the candidate axis via
-    packed_batch_fns(mesh=...) must reproduce the unsharded optimization:
+def test_sharded_population_optimization_matches_unsharded(fused_on_cpu):
+    """A WHOLE population optimization (batched projected L-BFGS on the
+    fused kernel) sharded over the candidate axis via
+    sharded_batch_fns(mesh) must reproduce the unsharded optimization:
     same objective traces, same final candidates. This extends the
-    multi-chip evidence from throughput probes to the delivered optimizer."""
+    multi-device evidence from throughput probes to the delivered optimizer."""
     import dataclasses
 
     from __graft_entry__ import _build_problem
@@ -204,7 +206,7 @@ def test_sharded_population_optimization_matches_unsharded():
 
     prob, setup = _build_problem(ntime=12, T=2.0)
     prob = Problem(dataclasses.replace(setup, pallas=True))
-    assert prob.use_pallas and prob.pack_group > 1
+    assert prob.use_pallas
 
     E, iters = 16, 6
     rng = np.random.default_rng(11)
@@ -219,7 +221,7 @@ def test_sharded_population_optimization_matches_unsharded():
         return J
 
     def run(mesh):
-        kw = prob.packed_batch_fns(ref, mesh=mesh)
+        kw = {} if mesh is None else prob.sharded_batch_fns(ref, mesh)
         f = prob._wrap_with_data(lambda xs: batched_lbfgsb(
             objective, jax.grad(objective), xs, lb, ub,
             iters=iters, history=4, **kw))
